@@ -1,18 +1,15 @@
 # ssqueeze_rs_tpu developer entry points
 
-.PHONY: test bench smoke fuzz native examples clean
+.PHONY: test bench smoke native examples clean
 
 test:            ## CPU suite (8 virtual devices, float64)
 	python -m pytest tests/ -q
 
-bench:           ## headline metric on the attached TPU (one JSON line)
+bench:           ## headline metric on the attached GPU (one JSON line)
 	python bench.py
 
-smoke:           ## behavioral smoke on the attached TPU
-	python tools/tpu_smoke.py
-
-fuzz:            ## randomized on-chip config fuzz
-	python tools/tpu_fuzz.py
+smoke:           ## main path at full size on one GPU, checked against references
+	python chip_smoke.py
 
 native:          ## build the C++ host runtime (libssq_native.so)
 	$(MAKE) -C native

@@ -1,8 +1,8 @@
 // Native host-side runtime for ssqueeze_rs_tpu.
 //
 // The reference's native layer is a Rust/Rayon transform core
-// (rust/src/spectral/*) plus dask/pyarrow ingestion. On TPU the transforms
-// live in XLA/Pallas; the native layer that remains host-side is:
+// (rust/src/spectral/*) plus dask/pyarrow ingestion. Here the transforms
+// live in XLA on the device; the native layer that remains host-side is:
 //
 //   1. a memory-mapped chunked signal reader with halo overlap — the
 //      streaming feeder for sharded long-recording pipelines (replaces the
@@ -113,7 +113,7 @@ int ssq_read_chunk_f32(MappedSignal* h, int64_t start, int64_t chunk_len,
 // 1b. Double-buffered prefetching chunk scheduler
 //
 // A producer thread reads + reflect-pads chunks into a ring of
-// pre-allocated buffers while the consumer (the TPU feed) processes the
+// pre-allocated buffers while the consumer (the device feed) processes the
 // previous one — the host-IO/device-compute overlap the reference gets
 // from dask's threaded scheduler. Single consumer; the slot returned by
 // ssq_prefetch_next is recycled on the NEXT call.

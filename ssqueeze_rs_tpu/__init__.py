@@ -1,10 +1,10 @@
-"""ssqueeze_rs_tpu — TPU-native synchrosqueezing / time-frequency analysis.
+"""ssqueeze_rs_tpu — synchrosqueezing / time-frequency analysis in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capability surface of
+A from-scratch JAX/XLA framework with the capability surface of
 ssqueeze_rs / ssqueezepy (STFT, CWT, synchrosqueezed variants, wavelets,
-ridge extraction), designed TPU-first: batched tensor programs instead of
-per-scale/per-frame thread pools, Pallas kernels for the reassignment
-scatter, and `jax.sharding` meshes with halo exchange for long recordings.
+ridge extraction): batched tensor programs instead of per-scale/per-frame
+thread pools, and `jax.sharding` meshes with halo exchange for long
+recordings.
 """
 from .config import DEFAULTS, EPS32, EPS64, pi
 from .utils.common import mad_rms, mad, est_riskshrink_thresh

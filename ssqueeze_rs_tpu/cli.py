@@ -3,12 +3,12 @@
 prints `_rs.hello_from_bin()` — src/ssqueeze/__init__.py:26-27).
 
 Bare `ssqueeze-tpu` reproduces that behavior; subcommands add the
-TPU-native operational surface:
+operational surface:
 
     ssqueeze-tpu               # hello line (reference main() parity)
     ssqueeze-tpu info          # version, backend, devices, native runtime
     ssqueeze-tpu demo [name]   # run a TestSignals demo transform (CPU-safe)
-    ssqueeze-tpu bench         # headline benchmark (needs the TPU)
+    ssqueeze-tpu bench         # headline benchmark (needs a GPU)
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ def _cmd_info(_args) -> int:
         import jax
         print(f"jax {jax.__version__}, backend={jax.default_backend()}, "
               f"devices={len(jax.devices())}")
-    except Exception as e:  # backend init can fail off-TPU; still useful
+    except Exception as e:  # backend init can fail; still useful
         print(f"jax backend unavailable: {e}")
     print(f"native host runtime: "
           f"{'loaded' if native.available() else 'not built (jnp fallback)'}")
@@ -63,7 +63,7 @@ def main(argv=None) -> int:
     d = sub.add_parser("demo", help="run a TestSignals demo")
     d.add_argument("name", nargs="?", default="all")
     d.add_argument("-N", type=int, default=2048)
-    sub.add_parser("bench", help="headline benchmark (real TPU)")
+    sub.add_parser("bench", help="headline benchmark (GPU)")
     args = p.parse_args(argv)
     return {"info": _cmd_info, "demo": _cmd_demo,
             "bench": _cmd_bench, None: _cmd_hello}[args.cmd](args)

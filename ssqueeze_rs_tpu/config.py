@@ -1,14 +1,14 @@
 """Global configuration & defaults.
 
-TPU-native re-design of the reference's three-tier config system
+Re-design of the reference's three-tier config system
 (reference: old/ssqueezepy/configs.py:27-147, configs.ini:1-47):
 
   1. library defaults below (mirrors configs.ini values),
-  2. environment flags (``SSQ_TPU_X64``, ``SSQ_TPU_INTERPRET``),
+  2. environment flags (``SSQ_TPU_X64``, ``SSQ_TPU_CONFIG``),
   3. per-call kwargs (always win).
 
-Unlike the reference there is no parallelism flag: XLA owns intra-chip
-parallelism, and multi-chip parallelism is explicit via
+Unlike the reference there is no parallelism flag: XLA owns on-device
+parallelism, and multi-device parallelism is explicit via
 ``ssqueeze_rs_tpu.parallel`` meshes.
 """
 from __future__ import annotations
@@ -135,16 +135,27 @@ def _autoload_ini():
 _autoload_ini()
 
 
-def enable_persistent_cache(directory="~/.cache/ssqueeze_rs_tpu_xla"):
-    """Persist compiled XLA executables across sessions — the TPU analog of
+_CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_persistent_cache(directory=None):
+    """Persist compiled XLA executables across processes — the analog of
     the reference's pyFFTW wisdom files (old/ssqueezepy/utils/
     fft_utils.py:104-133): plans survive process restarts.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, always wins (JAX reads it
+    itself; nothing else is set here). Otherwise `directory`, or one
+    fixed directory inside the checkout (``.jax_cache``, git-ignored):
+    the path is part of the cache key, so it must not move between runs.
     """
     import jax
 
-    path = os.path.expanduser(directory)
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    path = env or os.path.expanduser(directory or _CHECKOUT_CACHE_DIR)
     os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if not env:
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     return path
 
@@ -152,36 +163,10 @@ def enable_persistent_cache(directory="~/.cache/ssqueeze_rs_tpu_xla"):
 def use_x64() -> bool:
     """Whether float64 paths are requested (env flag ``SSQ_TPU_X64=1``).
 
-    float64 on TPU is software-emulated and slow; tests enable it on the CPU
-    backend for exactness checks (reference tolerance tests use float64).
+    Tests enable float64 on the CPU backend for exactness checks
+    (reference tolerance tests use float64).
     """
     return os.environ.get("SSQ_TPU_X64", "0") == "1"
-
-
-def interpret_mode() -> bool:
-    """Run Pallas kernels in interpreter mode (for CPU tests / debugging)."""
-    import jax
-
-    if os.environ.get("SSQ_TPU_INTERPRET", "") == "1":
-        return True
-    # auto-detect: Pallas TPU kernels only compile on TPU backends
-    return jax.default_backend() not in ("tpu",)
-
-
-def use_pallas_kernels() -> bool:
-    """Whether to use the Pallas fused reassignment kernel.
-
-    env ``SSQ_TPU_KERNELS``: '1' force on (interpret off-TPU), '0' force
-    off (XLA scatter), 'auto' (default) = on when running on TPU.
-    """
-    import jax
-
-    v = os.environ.get("SSQ_TPU_KERNELS", "auto")
-    if v == "1":
-        return True
-    if v == "0":
-        return False
-    return jax.default_backend() == "tpu"
 
 
 def default_dtype():

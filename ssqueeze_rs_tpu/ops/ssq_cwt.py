@@ -27,19 +27,6 @@ from .ssqueeze import ssqueeze, check_ssqueezing_args
 __all__ = ["ssq_cwt", "issq_cwt"]
 
 
-def _planar_ssq_ok(x, wavelet, padtype, squeezing, dtype):
-    """Is the planar (f32 planes end-to-end) fused path applicable?"""
-    from .fft_mxu import use_mxu_fft, best_split
-    from .cwt import _psih_is_real
-    from ..config import DEFAULTS
-    if str(dtype or DEFAULTS["dtype"]) != "float32":
-        return False
-    N = jnp.asarray(x).shape[-1]
-    M = p2up(N)[0] if padtype is not None else N
-    return (use_mxu_fft() and best_split(M) is not None and
-            _psih_is_real(wavelet) and squeezing == "sum")
-
-
 def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
             t=None, ssq_freqs=None, padtype="reflect", squeezing="sum",
             maprange="peak", difftype="trig", difforder=None, gamma=None,
@@ -49,18 +36,9 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
     """Synchrosqueezed CWT (reference parity: _ssq_cwt.py:12-310).
 
     Returns (Tx, Wx, ssq_freqs, scales[, w][, dWx]).
-
-    TPU perf note: the reassignment scatter is adaptively BANDED
-    (SSQ_TPU_REASSIGN_BAND, default on; bitwise-identical output).
-    Concentrated-phase signals (tones, denoised chirps) run ~1.2-1.5x
-    faster; white noise / multi-component signals and short off-bin
-    tones at default `gamma` take the full-loop fallback — for
-    leakage-dominated signals, raising `gamma` (denoising regime)
-    restores banding. See ops/ssq_stft.py's note and docs/DESIGN.md.
     """
     difforder = check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
                                       difforder, get_w, transform="cwt")
-    planes_w = planes_d = w_plane_arr = dwx_kernel = None
     x = jnp.asarray(x)
     N = x.shape[-1]
     dt, fs, _ = process_fs_and_t(fs, t, N)
@@ -90,87 +68,13 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
         scales, cwt_scaletype, *_ = process_scales(scales, N, wavelet, nv=nv,
                                                    get_params=True)
         rpadded = (difftype == "numeric")
-        if (not rpadded and not get_w and
-                _planar_ssq_ok(x, wavelet, padtype, squeezing, dtype)):
-            # planar fast path: CWT+derivative as f32 planes feeding the
-            # Pallas kernel directly — dWx never becomes complex64 and
-            # the kernel skips its .real/.imag split passes
-            from .cwt import cwt_core
-            from ..utils.pad import padsignal
-            from ..config import DEFAULTS
-            xx = jnp.asarray(x)
-            if nan_checks is None or nan_checks:
-                xx = jnp.nan_to_num(xx, nan=0.0, posinf=0.0, neginf=0.0)
-            xx = xx.astype(dtype or DEFAULTS["dtype"])
-            if padtype is not None:
-                xp_, _, n1_, _ = padsignal(xx, padtype, get_params=True)
-            else:
-                xp_, n1_ = xx, 0
-            sc = jnp.asarray(np.asarray(scales).squeeze(-1), xx.dtype)
-            from ..utils.common import warn_hbm_budget
-            warn_hbm_budget(
-                N, sc.shape[0],
-                batch=int(np.prod(xx.shape[:-1])) if xx.ndim > 1 else 1,
-                derivative=True, what="ssq_cwt")
-            from .fft_mxu import use_mxu_fft
-            from ..config import use_pallas_kernels
-            fb_token = None
-            if cache_wavelet:
-                from .cwt import _cache_filterbank
-                fb_token = _cache_filterbank(
-                    wavelet, np.asarray(scales).squeeze(-1),
-                    xp_.shape[-1])
-            from .cwt import cwt_phase_fusable, _WPlane
-            import os as _os
-            engines = (use_mxu_fft(), use_pallas_kernels())
-            # r4 fused-phase gate: compute w INSIDE the cwt kernel (one
-            # plane out instead of two dWx planes; ~1.2 ms HBM saved at
-            # the headline shape). Needs a concrete host gamma and the
-            # trig phase (the fused path's own difftype); get_dWx
-            # requires the real dWx planes. SSQ_TPU_PHASE_FUSED=0
-            # disables for A/B (read at call time, baked via this
-            # python branch, so in-process flips are safe).
-            phase_gamma = None
-            if (not get_dWx and difftype == "trig" and
-                    isinstance(gamma, (type(None), int, float)) and
-                    _os.environ.get("SSQ_TPU_PHASE_FUSED", "1") == "1" and
-                    cwt_phase_fusable(xp_.shape[-1], wavelet, xx.dtype,
-                                      engines)):
-                phase_gamma = float(gamma if gamma is not None
-                                    else 10 * EPS32)
-            # keep_align=512 (r5): planes come back (na, L2) with L2 the
-            # next 512-multiple >= N, so the reassignment kernel's
-            # columns are tile-divisible and its ragged-tile mask path
-            # never builds (~1.3 ms at the headline shape). Column-local
-            # scatter => slack columns only ever scatter into slack
-            # output columns, which n_out slicing drops; everything the
-            # user sees is sliced to N at a fused complexify.
-            planes_w, planes_d = cwt_core(
-                xp_, sc, jnp.asarray(dt, xx.dtype), wavelet=wavelet,
-                derivative=True, l1_norm=True, N=N, n1=n1_, rpadded=False,
-                planar_out=True, engines=engines,
-                fb_token=fb_token, phase_gamma=phase_gamma, keep_align=512)
-            Wx = jax.lax.complex(planes_w[0][..., :N],
-                                 planes_w[1][..., :N])
-            if isinstance(planes_d, _WPlane):
-                w_plane_arr = planes_d.w
-                dWx = planes_d = None
-            else:
-                dwx_kernel = planes_d       # full-width planes tuple
-                dWx = (jax.lax.complex(planes_d[0][..., :N],
-                                       planes_d[1][..., :N])
-                       if get_dWx else None)
-        else:
-            Wx, scales_out, dWx = cwt(x, wavelet, scales=scales, fs=fs,
-                                      nv=nv, l1_norm=True, derivative=True,
-                                      padtype=padtype, rpadded=rpadded,
-                                      nan_checks=nan_checks, dtype=dtype,
-                                      cache_wavelet=cache_wavelet)
+        Wx, scales_out, dWx = cwt(x, wavelet, scales=scales, fs=fs, nv=nv,
+                                  l1_norm=True, derivative=True,
+                                  padtype=padtype, rpadded=rpadded,
+                                  nan_checks=nan_checks, dtype=dtype)
 
     if gamma is None:
         gamma = 10 * (EPS64 if Wx.dtype == jnp.complex128 else EPS32)
-    # (w_plane_arr, when set, already folded THIS gamma into the kernel
-    # epilogue: phase_gamma = float(gamma or 10*EPS32) above)
 
     # phase transform if requested explicitly
     if get_w:
@@ -191,12 +95,8 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
             _, n1, _ = p2up(N)
             Wx = Wx[..., (n1 - 4):(n1 + N + 4)]
             w = phase_cwt_num(Wx, dt, difforder, gamma)
-        _dWx = None
     else:
         w = None
-        # kernel input: full-width planes tuple when the planar path
-        # produced one (keep_align slack); user-facing dWx stays N-wide
-        _dWx = dwx_kernel if dwx_kernel is not None else dWx
 
     if ssq_freqs is None:
         ssq_freqs = cwt_scaletype
@@ -205,9 +105,9 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
     Tx, ssq_freqs = ssqueeze(Wx, w, ssq_freqs, scales, fs=fs,
                              squeezing=squeezing, maprange=maprange,
                              wavelet=wavelet, gamma=gamma,
-                             was_padded=was_padded, flipud=flipud, dWx=_dWx,
-                             transform="cwt", wx_planes=planes_w,
-                             w_plane=w_plane_arr)
+                             was_padded=was_padded, flipud=flipud,
+                             dWx=None if get_w else dWx,
+                             transform="cwt")
 
     if difftype == "numeric":
         Wx = Wx[..., 4:-4]
@@ -262,7 +162,8 @@ def _invert_components(Tx, cc, cw):
     mask = (rows >= lower[:, None, :]) & (rows <= upper[:, None, :])
 
     Txr = Tx.real
-    comps = jnp.einsum("...fn,kfn->...kn", Txr, mask.astype(Txr.dtype))
+    comps = jnp.einsum("...fn,kfn->...kn", Txr, mask.astype(Txr.dtype),
+                       precision=jax.lax.Precision.HIGHEST)
     # residual: rows claimed by NO component (reference keeps &= ~mask)
     remainder = ~jnp.any(mask, axis=0)
     resid = jnp.sum(Txr * remainder.astype(Txr.dtype), axis=-2)

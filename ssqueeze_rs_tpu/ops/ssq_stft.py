@@ -36,16 +36,6 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     """Synchrosqueezed STFT (reference parity: _ssq_stft.py:13-136).
 
     Returns (Tx, Sx, ssq_freqs, Sfs[, w][, dSx]).
-
-    TPU perf note (banded scatter, default ON via
-    SSQ_TPU_REASSIGN_BAND): signals whose phase estimates concentrate
-    per time tile (long tones, chirps, denoised signals) take a banded
-    fast path ~1.8x faster than the full scatter. SHORT OFF-BIN tones
-    at the default gamma scatter w across leakage bins and silently
-    take the (correct, full-speed-baseline) fallback — raising `gamma`
-    to mask the leakage (e.g. ~1e-3 for unit-amplitude signals, the
-    denoising regime) restores banding. Output is bitwise-identical
-    either way.
     """
     _, fs, _ = process_fs_and_t(fs, t, jnp.shape(x)[-1])
     check_ssqueezing_args(squeezing)
@@ -54,62 +44,23 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
         raise ValueError("`ssq_freqs` must be linearly distributed for "
                          "`ssq_stft`")
 
-    from ..config import DEFAULTS, use_pallas_kernels
-    from .stft import MATMUL_NFFT_MAX
-    from .stft_pallas import ssq_stft_fused_ok
     N = jnp.shape(x)[-1]
-    n_fft_eff = int(n_fft or min(N // hop_len, 512))
-    planar = (str(dtype or DEFAULTS["dtype"]) == "float32" and
-              n_fft_eff <= MATMUL_NFFT_MAX and squeezing == "sum" and
-              not get_w)
-    import jax
-
-    # whole-pipeline fused kernel: frames + DFT + phase + bin + scatter
-    # in ONE Pallas kernel — the Sx/dSx planes never round-trip HBM
-    # between the STFT and the squeezing (ops/stft_pallas.py)
-    mega = (planar and hop_len == 1 and not get_dWx and ssq_freqs is None
-            and use_pallas_kernels() and
-            ssq_stft_fused_ok(n_fft_eff, N + n_fft_eff - 1))
-    if mega:
-        return _ssq_stft_mega(x, window, n_fft_eff, win_len, fs, modulated,
-                              padtype, gamma, dtype, flipud)
-    # keep the MXU matmul and the reassignment kernel in separate XLA
-    # computations: fusing the matmul's output transforms into the Pallas
-    # operand prep regresses the matmul ~10x
-    if planar:
-        # planes from the MXU matmul feed the Pallas kernel directly —
-        # dSx is never materialized as complex64
-        sxp, dsp = stft(x, window, n_fft=n_fft_eff, win_len=win_len,
-                        hop_len=hop_len, fs=fs, padtype=padtype,
-                        modulated=modulated, derivative=True, dtype=dtype,
-                        planar_out=True)
-        sxp, dsp = jax.lax.optimization_barrier((sxp, dsp))
-        Sx = jax.lax.complex(*sxp)
-        dSx = jax.lax.complex(*dsp) if get_dWx else dsp
-    else:
-        sxp = None
-        Sx, dSx = stft(x, window, n_fft=n_fft_eff, win_len=win_len,
-                       hop_len=hop_len, fs=fs, padtype=padtype,
-                       modulated=modulated, derivative=True, dtype=dtype)
-        Sx, dSx = jax.lax.optimization_barrier((Sx, dSx))
+    n_fft = int(n_fft or min(N // hop_len, 512))
+    Sx, dSx = stft(x, window, n_fft=n_fft, win_len=win_len, hop_len=hop_len,
+                   fs=fs, padtype=padtype, modulated=modulated,
+                   derivative=True, dtype=dtype)
 
     Sfs = make_Sfs(Sx, fs)
     if gamma is None:
         gamma = 10 * (EPS64 if Sx.dtype == jnp.complex128 else EPS32)
 
-    if get_w:
-        w = phase_stft(Sx, dSx, Sfs, gamma)
-        _dSx = None
-    else:
-        w = None
-        _dSx = dSx
-
+    w = phase_stft(Sx, dSx, Sfs, gamma) if get_w else None
     if ssq_freqs is None:
         ssq_freqs = Sfs
     Tx, ssq_freqs = ssqueeze(Sx, w, squeezing=squeezing, ssq_freqs=ssq_freqs,
-                             Sfs=Sfs, flipud=flipud, gamma=gamma, dWx=_dSx,
-                             maprange="maximal", transform="stft",
-                             wx_planes=sxp)
+                             Sfs=Sfs, flipud=flipud, gamma=gamma,
+                             dWx=None if get_w else dSx,
+                             maprange="maximal", transform="stft")
 
     if get_w and get_dWx:
         return Tx, Sx, ssq_freqs, Sfs, w, dSx
@@ -118,46 +69,6 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     elif get_dWx:
         return Tx, Sx, ssq_freqs, Sfs, dSx
     return Tx, Sx, ssq_freqs, Sfs
-
-
-def _ssq_stft_mega(x, window, n_fft, win_len, fs, modulated, padtype,
-                   gamma, dtype, flipud):
-    """Fully fused ssq_stft fast path (one Pallas kernel; hop=1, sum
-    squeezing, default ssq_freqs). Host planning mirrors the generic
-    path exactly: same window/DFT matrices, same plan_reassignment."""
-    from ..utils.pad import padsignal
-    from .stft import _dft_matrix
-    from .stft_pallas import ssq_stft_fused
-    from .ssqueeze import plan_reassignment
-
-    N = jnp.shape(x)[-1]
-    if win_len is None:
-        win_len = (len(window)
-                   if isinstance(window, (np.ndarray, jnp.ndarray))
-                   else n_fft)
-    window, diff_window = get_window(window, int(win_len), n_fft,
-                                     derivative=True, dtype="float32")
-    check_nola(window, 1)
-    F1 = _dft_matrix(window, n_fft, modulated)
-    F2 = _dft_matrix(diff_window, n_fft, modulated)
-    K_T = np.ascontiguousarray(np.concatenate(
-        [F1.real, F1.imag, F2.real, F2.imag], axis=1).T).astype(np.float32)
-
-    nf = n_fft // 2 + 1
-    # same grid rule as make_Sfs (planar mega path is f32)
-    Sfs = make_Sfs(np.empty((nf, 0), dtype=np.complex64), fs)
-    const_arr, mode, params = plan_reassignment(Sfs, nf, False,
-                                                transform="stft")
-    const_arr = np.broadcast_to(np.asarray(const_arr, np.float32), (nf,))
-    if gamma is None:
-        gamma = 10 * EPS32
-
-    xx = jnp.asarray(x).astype("float32")
-    xp = padsignal(xx, padtype, padlength=N + n_fft - 1)
-    Tx, Sx = ssq_stft_fused(xp, K_T, n_fft, N, fs, Sfs, const_arr,
-                            float(gamma), params, mode, bool(flipud))
-    ssq_freqs_out = Sfs[::-1] if flipud else Sfs
-    return Tx, Sx, ssq_freqs_out, Sfs
 
 
 def issq_stft(Tx, window=None, cc=None, cw=None, n_fft=None, win_len=None,

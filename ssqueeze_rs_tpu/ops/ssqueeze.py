@@ -1,6 +1,6 @@
 """Synchrosqueezing engine: phase transform + analytic binning + scatter.
 
-TPU-native redesign of the reference squeeze engine
+Redesign of the reference squeeze engine
 (old/ssqueezepy/ssqueezing.py + algos.py fused kernels):
 
   * frequency-bin index computed ANALYTICALLY in closed form per scaletype
@@ -9,8 +9,7 @@ TPU-native redesign of the reference squeeze engine
     uses (rust/src/spectral/ssq_stft.rs:280-289),
   * the fused path (w=None, from dWx) computes phase, bin and scatter in one
     traced program — XLA fuses the elementwise stage into the scatter
-    operand; optionally a Pallas kernel (ops/reassign_pallas.py) replaces
-    the scatter with an on-chip one-hot accumulation,
+    operand,
   * arbitrary leading batch dims: batch is folded into the time axis so ONE
     scatter covers all channels (reference loops channels,
     ssqueezing.py:209-214),
@@ -119,6 +118,35 @@ def _bin_index(w, mode, params, omax):
     return k.astype(jnp.int32)
 
 
+def phase_bin(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
+              fused, transform, nf):
+    """(k, vals): the bin k(i, j) of each entry and the value
+    Wx[i, j]*const[i] the scatter adds there (0 for skipped entries).
+    Arguments as `reassign`."""
+    omax = nf - 1
+    with jax.named_scope("ssq_phase_bin"):
+        if fused:
+            from .phase import _imag_ratio_over_2pi
+            ratio = _imag_ratio_over_2pi(Wx, w_or_dWx)
+            if transform == "stft":
+                w = jnp.abs(Sfs[:, None] - ratio)
+            else:
+                w = jnp.abs(ratio)
+            mask = jnp.abs(Wx) > gamma
+        else:
+            w = w_or_dWx
+            mask = ~jnp.isinf(w)
+
+        wsafe = jnp.where(mask, w, 1.0)
+        k = _bin_index(wsafe, mode, params, omax)
+        if flipud:
+            k = omax - k
+
+        vals = jnp.where(mask, Wx * const_arr[:, None].astype(Wx.dtype), 0.0)
+        k = jnp.where(mask, k, 0)
+    return k, vals
+
+
 @partial(jax.jit, static_argnames=("mode", "flipud", "fused", "transform",
                                    "nf"))
 def reassign(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
@@ -131,27 +159,9 @@ def reassign(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
     else w_or_dWx is the precomputed phase `w` (skip where inf).
     """
     na, n = Wx.shape[-2], Wx.shape[-1]
-    omax = nf - 1
-
-    if fused:
-        from .phase import _imag_ratio_over_2pi
-        ratio = _imag_ratio_over_2pi(Wx, w_or_dWx)
-        if transform == "stft":
-            w = jnp.abs(Sfs[:, None] - ratio)
-        else:
-            w = jnp.abs(ratio)
-        mask = jnp.abs(Wx) > gamma
-    else:
-        w = w_or_dWx
-        mask = ~jnp.isinf(w)
-
-    wsafe = jnp.where(mask, w, 1.0)
-    k = _bin_index(wsafe, mode, params, omax)
-    if flipud:
-        k = omax - k
-
-    vals = jnp.where(mask, Wx * const_arr[:, None].astype(Wx.dtype), 0.0)
-    k = jnp.where(mask, k, 0)
+    k, vals = phase_bin(Wx, w_or_dWx, const_arr, gamma, Sfs, params,
+                        mode=mode, flipud=flipud, fused=fused,
+                        transform=transform, nf=nf)
 
     # fold leading batch dims into columns: one scatter for everything
     batch_shape = Wx.shape[:-2]
@@ -160,7 +170,8 @@ def reassign(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
     k2 = jnp.moveaxis(k.reshape((B, na, n)), 0, -1).reshape(na, n * B)
     cols = jnp.arange(n * B, dtype=jnp.int32)[None, :]
 
-    Tx2 = jnp.zeros((nf, n * B), vals.dtype).at[k2, cols].add(vals2)
+    with jax.named_scope("ssq_scatter"):
+        Tx2 = jnp.zeros((nf, n * B), vals.dtype).at[k2, cols].add(vals2)
     Tx = jnp.moveaxis(Tx2.reshape(nf, n, B), -1, 0).reshape(
         batch_shape + (nf, n))
     return Tx
@@ -290,18 +301,11 @@ def check_ssqueezing_args(squeezing, maprange=None, wavelet=None,
 def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
              t=None, squeezing="sum", maprange="maximal", wavelet=None,
              gamma=None, was_padded=True, flipud=False, dWx=None,
-             transform="cwt", wx_planes=None, w_plane=None):
+             transform="cwt"):
     """Synchrosqueeze a CWT or STFT (reference parity: ssqueezing.py:13-224).
 
     Returns (Tx, ssq_freqs). When `w` is None the fused path is used
     (phase + bin + scatter in one program), requiring `dWx` and `gamma`.
-    `dWx` and `wx_planes` may be (real, imag) f32 plane tuples (planar CWT
-    path) — consumed directly by the Pallas kernel, no c64 round-trip.
-    `w_plane` (r4): phase transform already computed IN the cwt kernel
-    (fft_pallas phase_gamma epilogue; +inf = gamma-masked) — routed to
-    the Pallas kernel's 3-plane contract; `dWx` may then be None. Unlike
-    `w` (host/two-step semantics, XLA scatter), this stays on the fused
-    kernel path.
 
     NOTE (reference-parity semantics, ssqueezing.py:197-205): with
     squeezing='lebesgue'/'abs'/callable and `w=None`, the phase transform
@@ -309,7 +313,7 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     `ssqueeze_fast` does. Pass `get_w=True` upstream (two-step path) to
     compute phases from the original Wx.
     """
-    if w is None and w_plane is None and (dWx is None or gamma is None):
+    if w is None and (dWx is None or gamma is None):
         raise ValueError("if `w` is None, `dWx` and `gamma` must not be.")
     if isinstance(w, np.ndarray) and (w < 0).any():
         # reference guard (ssqueezing.py): log2 of a negative phase value
@@ -376,47 +380,15 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     Sfs_arr = (jnp.asarray(Sfs, dtype=rdtype) if Sfs is not None else
                jnp.zeros((na,), rdtype))
     fused = w is None
-
-    from ..config import use_pallas_kernels
-    n_cols = Wx.shape[-1]
-    if fused and use_pallas_kernels():
-        from .reassign_pallas import reassign_pallas
-        wx_in = (wx_planes if (wx_planes is not None and squeezing == "sum")
-                 else Wx)
-        if w_plane is not None:
-            dwx_in = None
-        else:
-            dwx_in = dWx if isinstance(dWx, tuple) else jnp.asarray(dWx)
-        # keep_align slack (r5): planes may carry extra tile-alignment
-        # columns past the signal; n_out slices Tx back (fused into the
-        # kernel-output complexify — free, and column-local scatter
-        # means the slack never touches columns < n_out)
-        wx_w = (wx_in[0] if isinstance(wx_in, tuple) else wx_in).shape[-1]
-        Tx = reassign_pallas(wx_in, dwx_in,
-                             jnp.asarray(const_arr, rdtype),
-                             float(gamma), Sfs_arr, params_host, mode=mode,
-                             flipud=flipud, transform=transform,
-                             nf=len(ssq_freqs), w_plane=w_plane,
-                             n_out=(n_cols if wx_w != n_cols else None))
-    else:
-        params = {k: (jnp.asarray(v) if k != "idx1" else
-                      jnp.asarray(v, jnp.int32))
-                  for k, v in params_host.items()}
-        if w_plane is not None:
-            # precomputed-w plane degrades cleanly to the two-step XLA
-            # path: reassign(fused=False) masks on isinf(w) — exactly
-            # the w_plane contract (sliced: may carry keep_align slack)
-            w, fused = w_plane[..., :n_cols], False
-        if isinstance(dWx, tuple):
-            dWx = jax.lax.complex(dWx[0][..., :n_cols],
-                                  dWx[1][..., :n_cols]).astype(Wx.dtype)
-        w_or_dWx = dWx if fused else w
-        gamma_val = jnp.asarray(gamma if gamma is not None else 0.0,
-                                dtype=rdtype)
-        Tx = reassign(Wx, jnp.asarray(w_or_dWx),
-                      jnp.asarray(const_arr, rdtype), gamma_val, Sfs_arr,
-                      params, mode=mode, flipud=flipud, fused=fused,
-                      transform=transform, nf=len(ssq_freqs))
+    params = {k: (jnp.asarray(v) if k != "idx1" else
+                  jnp.asarray(v, jnp.int32))
+              for k, v in params_host.items()}
+    w_or_dWx = dWx if fused else w
+    gamma_val = jnp.asarray(gamma if gamma is not None else 0.0,
+                            dtype=rdtype)
+    Tx = reassign(Wx, jnp.asarray(w_or_dWx), jnp.asarray(const_arr, rdtype),
+                  gamma_val, Sfs_arr, params, mode=mode, flipud=flipud,
+                  fused=fused, transform=transform, nf=len(ssq_freqs))
 
     # `scales` go high -> low (reference: ssqueezing.py:217-223)
     if (transform == "cwt" and not flipud) or flipud:

@@ -1,15 +1,14 @@
-"""Short-Time Fourier Transform, forward & inverse (TPU-native).
+"""Short-Time Fourier Transform, forward & inverse.
 
 Design (vs reference old/ssqueezepy/_stft.py + utils/stft_utils.py):
-  * framing is a lax.scan of grouped strided row writes (never an XLA
-    gather, which serializes on TPU),
-  * the windowed DFT runs as ONE MXU MATMUL for float32 and
-    n_fft <= 2048: the window, the "modulated" per-bin twiddle
-    (rfft(ifftshift(v*w))[k] = e^{2pi i k s20/n} rfft(v*w)[k]) and the
-    derivative-window scaling are all folded into a host-built DFT matrix.
-    XLA's TPU FFT falls back to Bluestein for non-power-of-2 n_fft (e.g.
-    the reference benchmark's 598) and loses ~30x to the MXU there. For
-    float64 (and large n_fft) a batched `rfft` path is used instead,
+  * framing is a lax.scan of grouped strided row writes (no XLA gather),
+  * the windowed DFT runs as ONE full-float32 (HIGHEST) MATMUL for
+    float32 and n_fft <= 2048: the window, the "modulated" per-bin
+    twiddle (rfft(ifftshift(v*w))[k] = e^{2pi i k s20/n} rfft(v*w)[k])
+    and the derivative-window scaling are all folded into a host-built
+    DFT matrix, so non-power-of-2 n_fft (the reference benchmark's 598)
+    needs no Bluestein FFT. For float64 (and large n_fft) a batched
+    `rfft` path is used instead,
   * inverse uses Griffin-Lim least-squares overlap-add with window^win_exp
     and the Sigma w^(exp+1) normalization (reference: _stft.py:184-256).
 
@@ -40,12 +39,9 @@ MATMUL_NFFT_MAX = 2048
 
 def frames_T_scan(xp, n_fft: int, hop_len: int):
     """framesT[..., j, i] = xp[..., j + i*hop]; built by a scan of
-    GROUPED in-place row writes (contiguous reads+writes — never an
-    XLA gather, which serializes on TPU; an unrolled 598-slice stack
-    also compiles for minutes on remote-compile setups). 8 rows per
-    scan step: the sequential while-loop's per-step overhead (~30 us)
-    dominated the old 1-row version (~15 ms of the 26 ms STFT).
-    Module-level so the fused kernel's transpose backward reuses it."""
+    GROUPED in-place row writes (contiguous reads+writes, no XLA gather;
+    an unrolled n_fft-slice stack compiles for minutes). 8 rows per scan
+    step, so the sequential loop runs ceil(n_fft/8) steps."""
     G = 8
     L = xp.shape[-1]
     n_segs = (L - n_fft) // hop_len + 1
@@ -71,11 +67,9 @@ def frames_T_scan(xp, n_fft: int, hop_len: int):
         return buf, None
 
     n_groups = -(-n_fft // G)
-    # derive init from xp so its sharding/varying axes match the
-    # scan body output under shard_map; over-allocate to a multiple
-    # of G and trim after
-    init = (jnp.zeros(batch + (n_groups * G, n_segs), xp.dtype)
-            + 0 * xp[..., :1, None])
+    # zeros_like(xp): the carry keeps xp's varying mesh axes under
+    # shard_map; over-allocate to a multiple of G and trim after
+    init = jnp.zeros_like(xp, shape=batch + (n_groups * G, n_segs))
     framesT, _ = jax.lax.scan(body, init, jnp.arange(n_groups))
     return framesT[..., :n_fft, :]
 
@@ -97,13 +91,8 @@ def _dft_matrix(window, n_fft, modulated):
 
 @lru_cache(maxsize=128)
 def _stft_program(win_bytes, dwin_bytes, n_fft, hop_len, modulated,
-                  derivative, dtype_str, planar=False, fused_kernel=False):
-    """Build & jit an STFT program with the window folded in as constants.
-
-    `planar=True` (matmul path only) returns f32 real/imag planes
-    (Sxr, Sxi[, dSxr, dSxi]) instead of complex arrays — they are free
-    slices of the MXU matmul output, and the Pallas reassignment kernel
-    consumes planes directly."""
+                  derivative, dtype_str):
+    """Build & jit an STFT program with the window folded in as constants."""
     window = np.frombuffer(win_bytes, dtype=np.float64)
     diff_window = (np.frombuffer(dwin_bytes, dtype=np.float64)
                    if dwin_bytes is not None else None)
@@ -111,13 +100,12 @@ def _stft_program(win_bytes, dwin_bytes, n_fft, hop_len, modulated,
     use_matmul = (rdtype == np.float32 and n_fft <= MATMUL_NFFT_MAX)
 
     def frames_T(xp):
-        return frames_T_scan(xp, n_fft, hop_len)
+        with jax.named_scope("stft_frames"):
+            return frames_T_scan(xp, n_fft, hop_len)
 
     if use_matmul:
-        # every DFT bin of every frame from one MXU matmul over the
-        # scan-built frames. (A lax.conv formulation is equally fast
-        # alone but pathologically deoptimizes when a Mosaic kernel
-        # shares the module, hence slices+dot.)
+        # every DFT bin of every frame from one matmul over the
+        # scan-built frames
         n_freqs = n_fft // 2 + 1
         F1 = _dft_matrix(window, n_fft, modulated)
         mats = [F1.real, F1.imag]              # (n_fft, n_freqs) each
@@ -131,30 +119,20 @@ def _stft_program(win_bytes, dwin_bytes, n_fft, hop_len, modulated,
 
         @jax.jit
         def run(xp, fs):
-            if fused_kernel:
-                # Pallas fused framing + DFT (hop=1): the frame matrix
-                # never exists in HBM (ops/stft_pallas.py)
-                from .stft_pallas import stft_dft_fused
-                n_out = xp.shape[-1] - n_fft + 1
-                out = stft_dft_fused(xp, K_T_np, n_fft, n_out)
-            else:
-                framesT = frames_T(xp)
+            framesT = frames_T(xp)
+            with jax.named_scope("stft_dft"):
                 out = jnp.einsum("fk,...kn->...fn", jnp.asarray(K_T_np),
                                  framesT,
                                  precision=jax.lax.Precision.HIGHEST,
                                  preferred_element_type=jnp.float32)
-            sxr = out[..., 0:n_freqs, :]
-            sxi = out[..., n_freqs:2 * n_freqs, :]
+            Sx = jax.lax.complex(out[..., 0:n_freqs, :],
+                                 out[..., n_freqs:2 * n_freqs, :])
             if derivative:
-                dsr = out[..., 2 * n_freqs:3 * n_freqs, :] * fs
-                dsi = out[..., 3 * n_freqs:, :] * fs
-                if planar:
-                    return sxr, sxi, dsr, dsi
-                return (jax.lax.complex(sxr, sxi),
-                        jax.lax.complex(dsr, dsi))
-            if planar:
-                return sxr, sxi
-            return jax.lax.complex(sxr, sxi), None
+                dSx = jax.lax.complex(
+                    out[..., 2 * n_freqs:3 * n_freqs, :] * fs,
+                    out[..., 3 * n_freqs:, :] * fs)
+                return Sx, dSx
+            return Sx, None
     else:
         win_np = window.astype(rdtype)
         dwin_np = diff_window.astype(rdtype) if derivative else None
@@ -169,7 +147,8 @@ def _stft_program(win_bytes, dwin_bytes, n_fft, hop_len, modulated,
                 fw = framesT * win[:, None]
                 if modulated:
                     fw = jnp.fft.ifftshift(fw, axes=-2)
-                S = jnp.fft.rfft(fw, axis=-2)   # (..., n_freqs, n_segs)
+                with jax.named_scope("stft_dft"):
+                    S = jnp.fft.rfft(fw, axis=-2)   # (..., n_freqs, n_segs)
                 if scale is not None:
                     S = S * scale
                 return S
@@ -183,45 +162,22 @@ def _stft_program(win_bytes, dwin_bytes, n_fft, hop_len, modulated,
 
 
 def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
-              derivative, planar_out=False, force_fused=None):
+              derivative):
     """STFT of an already-padded signal (time = last axis).
 
     `window`/`diff_window` are HOST numpy arrays (folded into the compiled
-    program). Returns Sx (and dSx if `derivative`), shape
-    (..., n_freqs, n_segs); with `planar_out` (matmul path only), f32
-    planes (Sxr, Sxi[, dSxr, dSxi]) instead.
+    program). Returns (Sx, dSx-or-None), shape (..., n_freqs, n_segs).
     """
-    if planar_out and not (np.dtype(str(xp.dtype)) == np.float32 and
-                           n_fft <= MATMUL_NFFT_MAX):
-        raise ValueError("planar_out requires the float32 MXU matmul path")
     win_bytes = np.asarray(window, np.float64).tobytes()
     dwin_bytes = (np.asarray(diff_window, np.float64).tobytes()
                   if (derivative and diff_window is not None) else None)
-    # fused Pallas framing+DFT: hop=1 f32 on TPU (or interpret) only;
-    # flag read here so the lru key captures it (env A/B in separate
-    # processes, as with the other kernels). `force_fused` lets
-    # chunked_stft pin the engine decided from the GLOBAL signal length
-    # so sharded and full transforms stay bit-identical.
-    from ..config import use_pallas_kernels
-    from .stft_pallas import stft_fused_ok
-    use_matmul = (np.dtype(str(xp.dtype)) == np.float32 and
-                  n_fft <= MATMUL_NFFT_MAX)
-    kmats = 4 if derivative else 2
-    if force_fused is None:
-        fused = bool(use_matmul and hop_len == 1 and
-                     use_pallas_kernels() and
-                     stft_fused_ok(int(n_fft), int(xp.shape[-1]), kmats))
-    else:
-        fused = bool(force_fused and use_matmul and hop_len == 1)
     run = _stft_program(win_bytes, dwin_bytes, int(n_fft), int(hop_len),
-                        bool(modulated), bool(derivative), str(xp.dtype),
-                        planar=bool(planar_out), fused_kernel=fused)
+                        bool(modulated), bool(derivative), str(xp.dtype))
     return run(xp, jnp.asarray(fs, dtype=xp.dtype))
 
 
 def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
-         padtype="reflect", modulated=True, derivative=False, dtype=None,
-         planar_out=False):
+         padtype="reflect", modulated=True, derivative=False, dtype=None):
     """Short-Time Fourier Transform (reference parity: _stft.py:13-181).
 
     `x`: array, time on last axis; arbitrary leading batch/channel dims.
@@ -232,8 +188,6 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
     reference multiplies the derivative window by fs only inside its
     `if modulated:` branch (_stft.py:305-308), leaving the unmodulated
     derivative in per-sample units.
-    `planar_out` (internal, ssq_stft fast path): return f32 plane tuples
-    ((Sxr, Sxi)[, (dSxr, dSxi)]) from the MXU matmul path.
     """
     x = jnp.asarray(x)
     N = x.shape[-1]
@@ -252,13 +206,9 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
     padlength = N + n_fft - 1
     xp = padsignal(x, padtype, padlength=padlength)
 
-    out = stft_core(xp, window, diff_window, fs, n_fft=n_fft,
-                    hop_len=hop_len, modulated=modulated,
-                    derivative=derivative, planar_out=planar_out)
-    if planar_out:
-        return ((out[0], out[1]), (out[2], out[3])) if derivative else \
-            (out[0], out[1])
-    Sx, dSx = out
+    Sx, dSx = stft_core(xp, window, diff_window, fs, n_fft=n_fft,
+                        hop_len=hop_len, modulated=modulated,
+                        derivative=derivative)
     return (Sx, dSx) if derivative else Sx
 
 
@@ -269,8 +219,7 @@ def overlap_add(xbuf, window, hop_len: int, n_fft: int, out_len: int,
     Implemented as a lax.scan of n_fft strided row adds: sample positions
     t + i*hop (i over frames) form ONE contiguous column of the output
     viewed as (G, hop) — so each scan step is a dynamic-slice add, never
-    an XLA scatter (scatter-add serializes on TPU: 878 ms for the hop=1
-    160k istft vs ~15 ms for this scan). Fixed t order => deterministic.
+    an XLA scatter. Fixed t order => deterministic.
     Reference: utils/stft_utils.py:141-181.
     """
     if win_exp == 0:
@@ -295,7 +244,7 @@ def overlap_add(xbuf, window, hop_len: int, n_fft: int, out_len: int,
             v = jnp.pad(v, ((0, 0), (0, pad_rows), (0, 0)))
         Lacc = n_segs + G8 - 1
         Lpad = n_groups * G8 + n_segs + G8
-        out = jnp.zeros((B, Lpad), v.dtype)
+        out = jnp.zeros_like(v, shape=(B, Lpad))   # v's mesh axes
 
         def body(out, g):
             t0 = g * G8
@@ -310,7 +259,7 @@ def overlap_add(xbuf, window, hop_len: int, n_fft: int, out_len: int,
         return out[..., :out_len].reshape(batch + (out_len,))
 
     G = (n_fft - 1) // hop + n_segs + 1
-    out2 = jnp.zeros((B, G, hop), v.dtype)
+    out2 = jnp.zeros_like(v, shape=(B, G, hop))
 
     def body(carry, t):
         vt = jax.lax.dynamic_index_in_dim(v, t, axis=1, keepdims=False)
@@ -330,8 +279,8 @@ def overlap_add(xbuf, window, hop_len: int, n_fft: int, out_len: int,
 def _irfft_mats(n_fft: int, modulated: bool):
     """Host matrices for irfft(+fftshift) as one real matmul:
     xbuf[t] = sum_k Fr[t,k]*Re(Sx[k]) - Fs[t,k]*Im(Sx[k]).
-    Non-power-of-2 n_fft (the reference benchmark's 598) otherwise hits
-    XLA's Bluestein FFT (~30x slower than the MXU)."""
+    Keeps non-power-of-2 n_fft (the reference benchmark's 598) off
+    the Bluestein FFT path."""
     n_freqs = n_fft // 2 + 1
     t = np.arange(n_fft)
     # fftshift rolls by +(n//2): out[t] = in[(t - n//2) % n], i.e. source
@@ -348,25 +297,10 @@ def _irfft_mats(n_fft: int, modulated: bool):
     return Fr, Fs
 
 
-def _win_pow(window_np, win_exp):
-    if win_exp == 0:
-        return np.ones_like(window_np)
-    return window_np ** win_exp
-
-
 @partial(jax.jit, static_argnames=("n_fft", "hop_len", "N", "modulated",
-                                   "win_exp", "fused_kernel", "win_bytes"))
-def istft_core(Sx, window, wn, *, n_fft, hop_len, N, modulated, win_exp,
-               fused_kernel=False, win_bytes=None):
-    if fused_kernel:
-        # fused Pallas irfft-matmul + overlap-add (hop=1): the
-        # (n_fft, n_segs) OLA buffer never exists in HBM
-        from .stft_pallas import istft_ola_fused
-        Fr_np, Fs_np = _irfft_mats(n_fft, modulated)
-        we = _win_pow(np.frombuffer(win_bytes, np.float64),
-                      win_exp).astype(np.float32)[:, None]
-        x = istft_ola_fused(Sx, Fr_np * we, Fs_np * we, n_fft)
-    else:
+                                   "win_exp"))
+def istft_core(Sx, window, wn, *, n_fft, hop_len, N, modulated, win_exp):
+    with jax.named_scope("istft_irfft"):
         if Sx.dtype == jnp.complex64 and n_fft <= MATMUL_NFFT_MAX:
             Fr_np, Fs_np = _irfft_mats(n_fft, modulated)
             xbuf = (jnp.einsum("tk,...kn->...tn", jnp.asarray(Fr_np),
@@ -380,6 +314,7 @@ def istft_core(Sx, window, wn, *, n_fft, hop_len, N, modulated, win_exp,
             if modulated:
                 xbuf = jnp.fft.fftshift(xbuf, axes=-2)
 
+    with jax.named_scope("istft_overlap_add"):
         x = overlap_add(xbuf, window, hop_len, n_fft, N + n_fft - 1,
                         win_exp)
 
@@ -403,15 +338,6 @@ def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
     window = get_window(window, win_len, n_fft=n_fft, dtype=dtype)
     check_nola(window, hop_len)
     wn = window_norm(window, hop_len, n_fft, N, win_exp)
-
-    from ..config import use_pallas_kernels
-    from .stft_pallas import istft_fused_ok
-    fused = bool(Sx.dtype == jnp.complex64 and hop_len == 1 and
-                 use_pallas_kernels() and istft_fused_ok(n_fft) and
-                 N == Sx.shape[-1])
-    # win_bytes is a static jit arg: pass it ONLY on the fused path so
-    # distinct windows don't force recompiles of the XLA program
-    wb = np.asarray(window, np.float64).tobytes() if fused else None
     return istft_core(Sx, jnp.asarray(window), jnp.asarray(wn), n_fft=n_fft,
                       hop_len=hop_len, N=N, modulated=modulated,
-                      win_exp=win_exp, fused_kernel=fused, win_bytes=wb)
+                      win_exp=win_exp)

@@ -1,11 +1,12 @@
-"""Sharded long-signal transforms with ICI halo exchange.
+"""Sharded long-signal transforms with halo exchange between devices.
 
-TPU-native replacement for the reference's dask `map_overlap` chunking
+Replacement for the reference's dask `map_overlap` chunking
 (tests/stft_test.py:262-269, tests/ssq_cwt_test.py:185-196; SURVEY §2.4 P9):
 the time axis is sharded over a mesh axis, each shard fetches
 window/wavelet halo samples from its neighbors via `lax.ppermute` (two
-neighbor sends over ICI), transforms its extended segment, and trims the
-halo. Global signal edges reflect-pad locally, matching
+neighbor sends), transforms its extended segment, and trims the halo.
+The collectives (`ppermute`, `all_gather`, `all_to_all` under
+`shard_map`) go to the device's collective library (NCCL on GPUs). Global signal edges reflect-pad locally, matching
 `boundary='reflect'`.
 
 Exactness:
@@ -34,33 +35,11 @@ given the CWT columns.
 """
 from __future__ import annotations
 
-from functools import partial
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        # check_vma=False: compiled pallas_call outputs carry no
-        # varying-mesh-axes metadata, and the new checker rejects them
-        # (TPU-only — interpret-mode Pallas lowers to jax ops and passes)
-        try:
-            return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=False)
-        except TypeError:   # older jax without check_vma
-            return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs)
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs)
 
 from ..config import DEFAULTS, EPS32, EPS64
 from ..scales import process_scales, process_fs_and_t
@@ -70,14 +49,18 @@ from ..wavelets.base import Wavelet
 from ..wavelets.props import time_resolution
 from ..ops.stft import stft_core
 from ..ops.cwt import cwt_core
-from ..ops.ssqueeze import (ssqueeze, bin_params,
-                            compute_associated_frequencies,
-                            plan_reassignment)
+from ..ops.ssqueeze import (compute_associated_frequencies,
+                            plan_reassignment, reassign)
 
 __all__ = ["chunked_stft", "chunked_cwt", "chunked_ssq_cwt",
            "chunked_ssq_stft", "chunked_istft", "chunked_icwt",
            "chunked_issq_cwt", "chunked_issq_stft", "default_cwt_halo",
            "halo_extend", "overlap_save_tail_mass"]
+
+
+def shard_map(f, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs)
 
 
 def _clip_halo(halo, S):
@@ -106,24 +89,6 @@ def _squeeze_Wx(squeezing, Wx):
     if squeezing == "abs":
         return jnp.abs(Wx).astype(Wx.dtype)
     return Wx
-
-
-def _reassign_local(Wx, dWx, const_j, gamma_j, gamma_f, Sfs_j, params_j,
-                    params_host, *, mode, flipud, transform, nf):
-    """Shard-local fused reassignment: the Pallas kernel when
-    `use_pallas_kernels()` (it is column-local, so it composes with
-    shard_map as an ordinary per-shard program — the XLA scatter-add it
-    replaces serializes on TPU, ~5.9 s vs ~22 ms at 293x160k), else the
-    jnp oracle (CPU tests, SSQ_TPU_KERNELS=0)."""
-    from ..config import use_pallas_kernels
-    from ..ops.ssqueeze import reassign
-    if use_pallas_kernels():
-        from ..ops.reassign_pallas import reassign_pallas
-        return reassign_pallas(Wx, dWx, const_j, gamma_f, Sfs_j,
-                               params_host, mode=mode, flipud=flipud,
-                               transform=transform, nf=nf)
-    return reassign(Wx, dWx, const_j, gamma_j, Sfs_j, params_j, mode=mode,
-                    flipud=flipud, fused=True, transform=transform, nf=nf)
 
 
 def halo_extend(xs, axis_name: str, n_shards: int, Hl: int, Hr: int,
@@ -212,23 +177,11 @@ def chunked_stft(x, mesh: Mesh, window=None, n_fft=None, win_len=None,
             f"the {n_shards} time shards holds only {S} samples; lower "
             f"n_fft, use fewer time shards, or process a longer signal")
 
-    # pin the fused-kernel decision to the one the FULL transform makes
-    # (the gate depends on signal length; shard-local lengths could
-    # otherwise pick a different engine and break the bit-exactness
-    # contract vs ops.stft)
-    from ..config import use_pallas_kernels
-    from ..ops.stft_pallas import stft_fused_ok
-    force_fused = bool(
-        np.dtype(dtype) == np.float32 and hop_len == 1 and
-        use_pallas_kernels() and
-        stft_fused_ok(int(n_fft), int(N + n_fft - 1),
-                      4 if derivative else 2))
-
     def shard_fn(xs):
         xe = halo_extend(xs, axis_name, n_shards, Hl, Hr)
         Sx, dSx = stft_core(xe, window, diff_window, float(fs), n_fft=n_fft,
                             hop_len=hop_len, modulated=modulated,
-                            derivative=derivative, force_fused=force_fused)
+                            derivative=derivative)
         return (Sx, dSx) if derivative else Sx
 
     in_spec, out_spec = _specs(x.ndim, x.ndim + 1, axis_name,
@@ -485,9 +438,12 @@ def chunked_ssq_cwt(x, mesh: Mesh, wavelet="gmw", scales="log-piecewise",
     ssq_freqs = compute_associated_frequencies(
         scales_arr, N, wavelet, scaletype, maprange, True, dt, "cwt")
     na = len(scales_arr)
+    # per-row nv inferred from the scale array, as the unsharded
+    # ssqueeze plans it (log-piecewise rows carry their segment's nv)
+    nv_rows = process_scales(scales_arr, N, get_params=True)[3]
     const_arr, mode, params_host = plan_reassignment(
         ssq_freqs, na, scaletype.startswith("log"), transform="cwt",
-        cwt_scaletype=scaletype, nv=nv, scales=scales_arr)
+        cwt_scaletype=scaletype, nv=nv_rows, scales=scales_arr)
     params = {k: (jnp.asarray(v) if k != "idx1" else
                   jnp.asarray(v, jnp.int32)) for k, v in params_host.items()}
     rdtype = jnp.float64 if dtype in ("float64", jnp.float64) else jnp.float32
@@ -505,10 +461,9 @@ def chunked_ssq_cwt(x, mesh: Mesh, wavelet="gmw", scales="log-piecewise",
 
     def shard_fn(xs):
         Wx, dWx = core(xs)
-        Tx = _reassign_local(_squeeze_Wx(squeezing, Wx), dWx, const_j,
-                             gamma_j, float(gamma), Sfs_j, params,
-                             params_host, mode=mode, flipud=flipud,
-                             transform="cwt", nf=nf)
+        Tx = reassign(_squeeze_Wx(squeezing, Wx), dWx, const_j, gamma_j,
+                      Sfs_j, params, mode=mode, flipud=flipud, fused=True,
+                      transform="cwt", nf=nf)
         return Tx, Wx
 
     in_spec, out_spec = _specs(x.ndim, x.ndim + 1, axis_name,
@@ -562,10 +517,9 @@ def chunked_ssq_stft(x, mesh: Mesh, window=None, n_fft=None, win_len=None,
     Sfs_j = jnp.asarray(Sfs, rdtype)
 
     def squeeze_fn(Sx_l, dSx_l):
-        return _reassign_local(_squeeze_Wx(squeezing, Sx_l), dSx_l,
-                               const_j, gamma_j, float(gamma), Sfs_j,
-                               params, params_host, mode=mode,
-                               flipud=flipud, transform="stft", nf=nf)
+        return reassign(_squeeze_Wx(squeezing, Sx_l), dSx_l, const_j,
+                        gamma_j, Sfs_j, params, mode=mode, flipud=flipud,
+                        fused=True, transform="stft", nf=nf)
 
     in_spec, out_spec = _specs(Sx.ndim, Sx.ndim, axis_name, batch_axis_name)
     fn = shard_map(squeeze_fn, mesh, (in_spec, in_spec), out_spec)
@@ -597,10 +551,6 @@ def chunked_istft(Sx, mesh: Mesh, window=None, n_fft=None, win_len=None,
     elementwise EQUAL (halo frames beyond the signal contribute literal
     +0.0 terms, the identity). The Griffin-Lim `window_norm` denominator
     is planned globally and passed in time-sharded.
-
-    Matches the unsharded XLA matmul/irfft route (the single-chip fused
-    Pallas istft kernel has its own in-VMEM fold; on TPU the two agree
-    to float rounding, not bitwise).
 
     Reference behavior: old/ssqueezepy/_stft.py:184-256.
     """
@@ -789,9 +739,8 @@ def comm_report(transform: str, N: int, n_shards: int, *, batch: int = 1,
     all_to_all sends (n-1)/n of the local block.
 
     Returns a dict: per-collective entries (op, what, calls,
-    bytes_per_device) + totals. Used by tools/comm_model.py to fit
-    predicted-vs-measured overhead and by the README's shard-length
-    guidance."""
+    bytes_per_device) + totals; tools/comm_model.cross_bytes turns it
+    into the bytes that cross process boundaries."""
     item = np.dtype(dtype).itemsize
     citem = 2 * item
     n = int(n_shards)

@@ -1,7 +1,7 @@
 """Ridge extraction: forward-backward dynamic programming on the TF plane.
 
 Reference parity: old/ssqueezepy/ridge_extraction.py (Iatsenko et al.,
-Eq. III.4 variant). TPU-native design: the sequential time recursion is a
+Eq. III.4 variant). Design: the sequential time recursion is a
 `lax.scan` whose per-step body is a vectorized min-plus product
 (min over (na, na) matrix) — replacing the numba row loops. Multi-ridge
 extraction zeroes +-bw bins around each found ridge and repeats.

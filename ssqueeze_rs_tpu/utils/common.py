@@ -25,21 +25,33 @@ def NOTE(msg: str):
     _logger.warning("NOTE: %s", msg)
 
 
-def warn_hbm_budget(N, na, batch=1, derivative=False, what="cwt"):
-    """Friendly heads-up before an opaque device OOM: the working set of a
-    single-shot CWT is ~20 arrays of (na, padded_len) f32 per channel.
-    Shared by cwt() and the planar ssq_cwt fast path (which bypasses
-    cwt())."""
+def device_memory_limit():
+    """Bytes this process may allocate on its first local device
+    (`memory_stats()["bytes_limit"]`), or None where the device does not
+    report it (the CPU backend): nothing is assumed for such a device."""
     import jax
+    stats = jax.local_devices()[0].memory_stats() or {}
+    return stats.get("bytes_limit")
+
+
+def warn_hbm_budget(N, na, batch=1, derivative=False, what="cwt"):
+    """Friendly heads-up before an opaque device OOM. A single-shot CWT
+    keeps about two (na, N) complex64 arrays per channel (six for the
+    synchrosqueezed path: Wx, dWx, the scatter's values, bins and Tx)
+    plus the iFFT's padded-length spectra, which `ops.cwt` blocks over
+    scales to at most half of the device's limit."""
     from .pad import p2up
-    if jax.default_backend() != "tpu":
+    limit = device_memory_limit()
+    if limit is None:
         return
-    est = (20 * int(na) * p2up(int(N))[0] * 4 * int(batch) *
-           (2 if derivative else 1))
-    if est > 14e9:
-        WARN(f"single-shot {what} needs ~{est / 1e9:.0f} GB HBM at "
-             f"N={N}, na={na}, batch={batch}; consider "
-             "parallel.process_recording or parallel.chunked_cwt")
+    per = int(batch) * int(na) * 8
+    spectra = 3 * per * p2up(int(N))[0] * (2 if derivative else 1)
+    est = per * int(N) * (6 if derivative else 2) + min(spectra, limit / 2)
+    if est > limit:
+        WARN(f"single-shot {what} needs ~{est / 1e9:.0f} GB of device "
+             f"memory at N={N}, na={na}, batch={batch} (the device allows "
+             f"{limit / 1e9:.0f} GB); consider parallel.process_recording "
+             "or parallel.chunked_cwt")
 
 
 def assert_is_one_of(x, name, supported, e=ValueError):

@@ -6,7 +6,7 @@ imshow/plot/plots/scat/plotscat/hist with ticks/borders/norm/complex
 controls, vhlines, wavelet introspection (filterbank, waveforms, heatmap,
 time-frequency summary, property sweeps, GMW orders, scale-bound
 visualization) and a gif-exporting `wavelet_tf_anim`. Matplotlib is
-imported on first use so headless/TPU environments never pay for it.
+imported on first use so headless environments never pay for it.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Wavelet abstraction: pure frequency-domain functions of (omega; params).
 
-TPU-first redesign of the reference's `Wavelet` class
+Redesign of the reference's `Wavelet` class
 (old/ssqueezepy/wavelets.py:43-470): instead of a stateful callable with GPU
 flags, a wavelet here is a frozen, hashable spec whose `psih` evaluates with
 either numpy (host planning: scale bounds, admissibility, properties) or
@@ -226,34 +226,24 @@ class Wavelet:
         d["_Psih_scale"] = np.asarray(scale, dtype=np.float64)
         return out
 
-    def sample(self, scales, N: int, xp=np, nohalf: bool = False,
-               half: bool = False):
+    def sample(self, scales, N: int, xp=np, nohalf: bool = False):
         """Filterbank `psih(scales[:, None] * xi(1, N))`, one batched eval.
 
         `nohalf=False` halves the Nyquist bin (even N) for analyticity
         (reference: old/ssqueezepy/wavelets.py:86-95).
-        `half=True` samples only the non-negative-frequency bins
-        k = 0..N//2 (shape (..., N//2+1)) — exact for analytic wavelets
-        (psih == 0 for w < 0), feeding the half-band MXU iFFT.
         Returns shape (len(scales), N), or (N,) for scalar scale.
         """
-        if half:
-            assert N % 2 == 0
-            xi = xifn(1, N, xp=xp)[: N // 2 + 1]
-        else:
-            xi = xifn(1, N, xp=xp)
+        xi = xifn(1, N, xp=xp)
         scales = xp.asarray(scales)
         scalar = (getattr(scales, "ndim", 0) == 0)
         w = (scales * xi) if scalar else (scales.reshape(-1, 1) * xi[None, :])
         psih = self.psih(w, xp)
-        nyq = N // 2 if half else (N // 2 if N % 2 == 0 else None)
-        if not nohalf and nyq is not None:
-            idx = -1 if half else N // 2
+        if not nohalf and N % 2 == 0:
             if xp is np:
                 psih = psih.copy()
-                psih[..., idx] = psih[..., idx] / 2
+                psih[..., N // 2] = psih[..., N // 2] / 2
             else:
-                psih = psih.at[..., idx].divide(2)
+                psih = psih.at[..., N // 2].divide(2)
         return psih
 
     def psi_time(self, scale, N: int, xp=np):

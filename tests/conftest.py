@@ -1,7 +1,8 @@
 """Test configuration: run on a virtual 8-device CPU mesh.
 
-Must set XLA flags BEFORE jax initializes its backends. Real-TPU benchmarks
-live in bench.py, not the test suite (reference test strategy: SURVEY.md §4).
+Must set XLA flags BEFORE jax initializes its backends. GPU measurements
+live in bench.py / chip_smoke.py, not the test suite (reference test
+strategy: SURVEY.md §4).
 """
 import os
 

@@ -86,4 +86,4 @@ def test_pad_signal():
 
 
 def test_hello():
-    assert "TPU" in _rs.hello_from_bin()
+    assert "JAX" in _rs.hello_from_bin()

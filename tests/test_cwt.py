@@ -136,36 +136,6 @@ def test_icwt_two_integral_batched():
         assert np.allclose(xb[i], xi, atol=1e-12)
 
 
-def test_cache_wavelet_matches_in_trace(monkeypatch):
-    """cache_wavelet=True (host-sampled filterbank folded in as program
-    constant — the reference's Psih cache, wavelets.py:135-159) matches
-    in-trace sampling on the planar path."""
-    from ssqueeze_rs_tpu import cwt, ssq_cwt
-
-    monkeypatch.setenv("SSQ_TPU_MXU_FFT", "1")
-    monkeypatch.setenv("SSQ_TPU_KERNELS", "1")
-    import jax
-    jax.clear_caches()
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal(4000).astype(np.float32)
-    wav = ("gmw", {"beta": 8.0})
-    W0, sc0 = cwt(x, wav, scales="log", dtype="float32")
-    W1, sc1 = cwt(x, wav, scales="log", dtype="float32",
-                  cache_wavelet=True)
-    assert np.allclose(np.asarray(sc0), np.asarray(sc1))
-    rel = (np.abs(np.asarray(W1) - np.asarray(W0)).max()
-           / np.abs(np.asarray(W0)).max())
-    assert rel < 1e-5, rel
-
-    T0, *_ = ssq_cwt(x, wav, scales="log", fs=1.0, dtype="float32")
-    T1, *_ = ssq_cwt(x, wav, scales="log", fs=1.0, dtype="float32",
-                     cache_wavelet=True)
-    col0 = np.abs(np.asarray(T0)).sum(axis=0)
-    col1 = np.abs(np.asarray(T1)).sum(axis=0)
-    assert np.abs(col1 - col0).mean() / col0.mean() < 1e-4
-    jax.clear_caches()
-
-
 def test_icwt_log_piecewise_x_mean_added_once():
     """x_mean is added exactly once for log-piecewise scales (the
     reference's recursion adds it per segment, _cwt.py:421-427 —

@@ -276,3 +276,26 @@ def test_process_recording_cwt_derivative_rejected():
     x = np.zeros((1, 1024), np.float32)
     with pytest.raises(ValueError, match="derivative"):
         process_recording(x, transform="cwt", derivative=True)
+
+
+@pytest.mark.parametrize("out", ["numpy", "energy"])
+@pytest.mark.parametrize("transform", ["ssq_cwt", "stft"])
+def test_process_recording_channel_groups_match_unsplit(monkeypatch,
+                                                        transform, out):
+    """A device memory limit that fits one channel per group sends the
+    channels through in groups; the outputs come back in channel order,
+    each equal to the run with no limit (one group)."""
+    import ssqueeze_rs_tpu.utils.common as common
+    rng = np.random.default_rng(4)
+    C, N = 3, 4096
+    x = rng.standard_normal((C, N)) * np.arange(1, C + 1)[:, None]
+    kw = dict(transform=transform, chunk_len=2048, n_fft=128, out=out,
+              dtype="float64")
+    monkeypatch.setattr(common, "device_memory_limit", lambda: None)
+    ref, _ = process_recording(x, **kw)
+    monkeypatch.setattr(common, "device_memory_limit", lambda: 1)
+    got, _ = process_recording(x, **kw)
+    assert got.shape == ref.shape and got.shape[0] == C
+    for c in range(C):
+        err = np.abs(got[c] - ref[c]).max() / np.abs(ref[c]).max()
+        assert err < 1e-12, (c, err)

@@ -170,79 +170,3 @@ def test_ssqueeze_rejects_negative_w():
     with pytest.raises(ValueError, match="negatives"):
         ssqueeze(Wx, w, np.linspace(0.01, 0.5, 4), np.logspace(0, 1, 4),
                  transform="cwt")
-
-
-def test_phase_fused_path_matches_standard(monkeypatch):
-    """r4 fused-phase epilogue (fft_pallas phase_gamma -> reassign
-    3-plane contract): Tx/Wx BITWISE-equal to the 4-plane route, and
-    gradients identical (w carries zero cotangent by convention on
-    both paths).
-
-    Forces the fused engines on (MXU_FFT=1, KERNELS=1 -> interpret
-    kernels on CPU) with N=9000 -> M=16384 >= 2^14 so
-    _make_cwt_kernel_phase is ACTUALLY BUILT — at the old N=4096 the
-    gate fell through and both flags took the identical path (ADVICE
-    r4). A builder spy asserts which route each flag takes."""
-    import os
-    import jax
-    import jax.numpy as jnp
-    from ssqueeze_rs_tpu.ops import fft_pallas
-
-    monkeypatch.setenv("SSQ_TPU_MXU_FFT", "1")
-    monkeypatch.setenv("SSQ_TPU_KERNELS", "1")
-    jax.clear_caches()
-
-    built = []
-    real_builder = fft_pallas._make_cwt_kernel_phase
-    monkeypatch.setattr(
-        fft_pallas, "_make_cwt_kernel_phase",
-        lambda *a, **k: (built.append(a), real_builder(*a, **k))[1])
-
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal(9000).astype(np.float32)
-
-    def run(flag, **kw):
-        os.environ["SSQ_TPU_PHASE_FUSED"] = flag
-        try:
-            return ssq_cwt(x, ("gmw", {"beta": 8.0}),
-                           scales="log-piecewise", fs=1000.0, nv=4,
-                           dtype="float32", **kw)
-        finally:
-            os.environ.pop("SSQ_TPU_PHASE_FUSED", None)
-
-    for kw in ({}, {"gamma": 1e-3}):
-        built.clear()
-        a = run("0", **kw)
-        assert not built, "flag=0 must not build the phase kernel"
-        b = run("1", **kw)
-        assert built, "flag=1 must take the fused-phase route"
-        assert np.array_equal(np.asarray(a[0]), np.asarray(b[0])), kw
-        assert np.array_equal(np.asarray(a[1]), np.asarray(b[1])), kw
-
-    # get_dWx must disable the fusion (needs real dWx planes) and stay
-    # correct
-    built.clear()
-    a = run("0", get_dWx=True)
-    b = run("1", get_dWx=True)
-    assert not built, "get_dWx must force the 4-plane route"
-    assert np.array_equal(np.asarray(a[4]), np.asarray(b[4]))
-
-    def loss(xx, flag):
-        os.environ["SSQ_TPU_PHASE_FUSED"] = flag
-        try:
-            Tx, *_ = ssq_cwt(xx, ("gmw", {"beta": 8.0}),
-                             scales="log-piecewise", fs=1000.0, nv=4,
-                             dtype="float32")
-        finally:
-            os.environ.pop("SSQ_TPU_PHASE_FUSED", None)
-        return jnp.sum(jnp.abs(Tx) ** 2)
-
-    # 3-plane VJP vs 4-plane VJP (the fused kernel's custom_vjp)
-    xj = jnp.asarray(x)
-    built.clear()
-    g0 = jax.grad(lambda z: loss(z, "0"))(xj)
-    assert not built
-    g1 = jax.grad(lambda z: loss(z, "1"))(xj)
-    assert built, "grad must also trace the fused-phase route"
-    assert jnp.array_equal(g0, g1)
-    jax.clear_caches()

@@ -253,3 +253,30 @@ def test_fft_global_object_parity(tmp_path):
     assert f.save_wisdom() == f._cache_dir
     assert isinstance(f.threads, int) and f.threads >= 1
     assert FFT(verbose=0, threads=3).threads == 3
+
+
+@pytest.mark.parametrize("env_set", [False, True], ids=["unset", "set"])
+def test_persistent_cache_dir(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is set in code;
+    unset, the cache goes to one fixed directory inside the checkout."""
+    import os
+    import jax
+    from ssqueeze_rs_tpu import config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert config._CHECKOUT_CACHE_DIR == os.path.join(root, ".jax_cache")
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: calls.append((k, v)))
+    monkeypatch.setattr(config, "_CHECKOUT_CACHE_DIR", str(tmp_path / "c"))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "e"))
+        got = config.enable_persistent_cache(directory=str(tmp_path / "x"))
+        assert got == str(tmp_path / "e")
+        assert all(k != "jax_compilation_cache_dir" for k, _ in calls)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        got = config.enable_persistent_cache()
+        assert got == str(tmp_path / "c")
+        assert ("jax_compilation_cache_dir", got) in calls
+    assert os.path.isdir(got)

@@ -1,302 +1,32 @@
-"""Predicted-vs-measured collective-overhead model (VERDICT r3 #4).
+"""Cross-process collective traffic of one chunked transform call.
 
-The one REAL scaling signal this environment can produce is the
-multi-process CPU-mesh weak-scaling row set (the virtual single-process
-rows share host cores and bound nothing). This tool closes the loop on
-it:
-
-1. `comm_report` (parallel/chunked.py) counts the bytes each device
-   sends per collective for the bench config (ssq_cwt weak scaling,
-   N = 8192 * 8, 8 devices, scales='log', nv=8 — the same config the
-   SCALING.json rows measure).
-2. The cross-process traffic model: with P processes over an 8-device
-   ring, ring collectives (ppermute halos, all_gather) cross process
-   boundaries on exactly P edges; the all_to_all's uniform pairwise
-   traffic crosses on (n - n/P)/(n-1) of its bytes. Everything else is
-   intra-process memcpy, charged to the 1-process baseline.
-
-       overhead = T_weak(P procs) - T_weak(1 proc)
-                = X_cross / BW + C
-
-   BW = effective cross-process bandwidth (localhost TCP/shm transport
-   of jax.distributed), C = fixed distributed-mode cost per step.
-3. THIS HOST HAS ONE CORE, so varying P confounds comm with core
-   thrash (measured: P=8 overhead 4.1 s vs ~0.45 s from the byte
-   model — pure oversubscription). The fit therefore varies the BYTES
-   at FIXED P=2 (three weak-scaling sizes; the contention term is a
-   constant absorbed into C): fit (BW, C) on the outer two sizes'
-   MEDIANS over R repetitions, VALIDATE on the middle one against its
-   measured [min, max] error bar, plus a P=4 consistency check. The
-   model is an UPPER BOUND on overhead, not a point predictor (the
-   signal sits at the 1-core run-variance floor — VERDICT r4 #5). Rows
-   + fit + error bars go into SCALING.json.
-4. The same comm model with v5p ICI constants produces the shard-length
-   statement for the >= 90% BASELINE target (printed + SCALING.json).
-
-Run: python tools/comm_model.py [--skip-measure]
+`comm_report` (parallel/chunked.py) counts the bytes each device sends
+per collective. `cross_bytes` turns one such report into the bytes that
+cross process boundaries when P processes share an n-device ring: ring
+collectives (ppermute halos, all_gather) cross on exactly P edges, and
+the all_to_all's uniform pairwise traffic crosses on (n - n/P)/(n-1) of
+its bytes. Everything else stays inside one process.
 """
-import json
-import os
-import sys
-
-import numpy as np
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
 N_DEV = 8
-N_BASE = 8192
-NV = 8
 
 
 def cross_bytes(rep: dict, P: int, n: int = N_DEV) -> int:
-    """Bytes crossing process boundaries per weak-scaling step, from a
-    comm_report dict, for P processes over an n-device ring."""
+    """Bytes crossing process boundaries per call, from a comm_report
+    dict, for P processes over an n-device ring."""
     if P <= 1:
         return 0
     total = 0
-    S = rep["S"]
-    item = np.dtype(rep["dtype"]).itemsize
     for e in rep["collectives"]:
         if e["op"] == "ppermute":
             # per ring edge: the halo samples that edge carries (both
             # directions combined = the per-device send total)
-            per_edge = e["bytes_per_device"] * e["calls"]
-            total += P * per_edge
+            total += P * e["bytes_per_device"] * e["calls"]
         elif e["op"] == "all_gather":
             # ring all_gather: every edge carries (n-1) shard blocks
-            per_edge = e["bytes_per_device"]      # = (n-1) * S * item
-            total += P * per_edge
+            total += P * e["bytes_per_device"]
         elif e["op"] == "all_to_all":
             # uniform pairwise: fraction of bytes with the peer in
             # another process = (n - n/P) / (n - 1)
             frac = (n - n // P) / (n - 1)
             total += int(e["calls"] * n * e["bytes_per_device"] * frac)
     return total
-
-
-def fit_line(points):
-    """points: list of (cross_bytes, overhead_s). Least-squares
-    overhead = bytes/BW + C. Returns (inv_bw, C)."""
-    X = np.array([p[0] for p in points], float)
-    Y = np.array([p[1] for p in points], float)
-    A = np.stack([X, np.ones_like(X)], axis=1)
-    (inv_bw, C), *_ = np.linalg.lstsq(A, Y, rcond=None)
-    return float(inv_bw), float(C)
-
-
-def v5p_statement(bw_ici=9e10, lat_coll=1e-6, msps_chip=4.45e6,
-                  n_chips=16):
-    """Shard length S at which a v5p-16 weak-scaling ssq_cwt hits 90%.
-
-    Assumptions (documented, not measured — no pod hardware here):
-    ICI ~90 GB/s usable per link (public v5p: 4.8 Tb/s total across 6
-    links; one ring direction), ~1 us per collective hop, single-chip
-    ssq_cwt throughput = the measured BENCH headline (4.45 MSamples/s).
-    eff(S) = 1 / (1 + comm(S)/compute(S)) with comm = bytes/BW + calls*lat.
-    """
-    from ssqueeze_rs_tpu.parallel.chunked import comm_report
-    rows = []
-    S_star = None
-    for S in (4096, 8192, 16384, 32768, 65536, 131072, 262144):
-        rep = comm_report("ssq_cwt", S * n_chips, n_chips,
-                          scales="log", nv=NV, dtype="float32")
-        comm = (rep["total_bytes_per_device"] / bw_ici
-                + rep["total_calls"] * lat_coll)
-        compute = S / msps_chip
-        eff = 1.0 / (1.0 + comm / compute)
-        rows.append(dict(S=S, comm_ms=round(comm * 1e3, 3),
-                         compute_ms=round(compute * 1e3, 3),
-                         eff=round(eff, 4)))
-        if S_star is None and eff >= 0.90:
-            S_star = S
-    return dict(assumptions=dict(bw_ici_gbps=bw_ici / 1e9,
-                                 lat_per_collective_us=lat_coll * 1e6,
-                                 chip_msps=msps_chip / 1e6,
-                                 n_chips=n_chips),
-                caveat=("PROJECTION from exact byte counts + documented "
-                        "ICI constants — no pod hardware was available "
-                        "to measure it. The CPU-host comm fit validates "
-                        "only as an UPPER BOUND with error bars "
-                        "(comm_model.fit); efficiencies here are not "
-                        "measured numbers."),
-                rows=rows, S_90pct=S_star)
-
-
-def main():
-    skip = "--skip-measure" in sys.argv
-    from ssqueeze_rs_tpu.parallel.chunked import comm_report
-    rep = comm_report("ssq_cwt", N_BASE * N_DEV, N_DEV,
-                      scales="log", nv=NV, dtype="float32")
-    print("comm_report:", json.dumps(rep), flush=True)
-
-    path = os.path.join(REPO, "SCALING.json")
-    data = json.load(open(path))
-
-    if not skip:
-        import scaling_bench as sb
-        # This host has ONE core (nproc=1): varying the PROCESS COUNT
-        # confounds comm with core thrash (measured: P=8 overhead 4.1 s
-        # vs 0.45 s extrapolated — pure oversubscription). So the model
-        # is fitted/validated by varying the BYTES at FIXED P=2 (three
-        # weak-scaling sizes; contention is then a constant absorbed
-        # into C), with the P=4 point reported as a byte-model
-        # consistency check, not a validation point.
-        sb._setup_cpu(N_DEV)
-        from ssqueeze_rs_tpu.parallel import make_mesh
-        import jax
-        mesh = make_mesh((1, N_DEV), ("data", "time"),
-                         devices=jax.devices()[:N_DEV])
-
-        sizes = (4096, 8192, 16384)
-        R = int(os.environ.get("COMM_MODEL_REPS", 5))
-        points = []      # (cross_bytes, [overhead samples], dict-row)
-        os.environ["SCALING_K"] = "8"   # workers read it at import
-        sb.K = 8                        # this process already imported
-
-        def measure(NB, P):
-            """R repetitions of (baseline, P-proc, baseline); each
-            overhead sample = weak_s - min(surrounding baselines).
-            Repetition is the error bar the r4 single-shot fit lacked:
-            on this 1-core host the comm signal (2-4% of a step) sits AT
-            the run-variance floor, so a single sample is meaningless."""
-            os.environ["SCALING_N_BASE"] = str(NB)
-            ovs, t1s, t2s = [], [], []
-            for _ in range(R):
-                t1a = sb._bench_one(mesh, "ssq_cwt", NB * N_DEV)
-                rP = sb.multi_process(P)
-                t1b = sb._bench_one(mesh, "ssq_cwt", NB * N_DEV)
-                t1 = min(t1a, t1b)
-                t1s.append(t1)
-                t2s.append(rP["weak_s"])
-                ovs.append(rP["weak_s"] - t1)
-            return np.array(ovs), float(np.median(t1s)), rP
-
-        for NB in sizes:
-            ovs, t1, r2 = measure(NB, 2)
-            repN = comm_report("ssq_cwt", NB * N_DEV, N_DEV,
-                               scales="log", nv=NV, dtype="float32")
-            xb = cross_bytes(repN, 2)
-            row = dict(transform="ssq_cwt", devices=N_DEV, processes=2,
-                       n_base=NB, weak_s=r2["weak_s"],
-                       weak_1proc_s=round(t1, 4),
-                       eff_vs_1proc=round(t1 / r2["weak_s"], 3),
-                       cross_bytes=xb,
-                       overhead_s_median=round(float(np.median(ovs)), 4),
-                       overhead_s_min=round(float(ovs.min()), 4),
-                       overhead_s_max=round(float(ovs.max()), 4),
-                       reps=R)
-            points.append((xb, ovs, row))
-            print(f"NB={NB}: t1={t1:.4f} ov med={np.median(ovs):.4f} "
-                  f"[{ovs.min():.4f}, {ovs.max():.4f}] xbytes={xb}",
-                  flush=True)
-        os.environ["SCALING_N_BASE"] = str(N_BASE)
-
-        # fit on the outer two sizes' medians, validate on the middle.
-        # INTERPRETATION (VERDICT r4 #5): the fit is an UPPER BOUND on
-        # collective overhead, not a point predictor — the r4 single-shot
-        # fit overpredicted both out-of-sample points 3-6x because its
-        # fitted points were variance, not signal. Validation therefore
-        # checks containment in the measured error bar OR prediction >=
-        # the bar's low edge (the bound direction).
-        inv_bw, C = fit_line([(points[0][0], np.median(points[0][1])),
-                              (points[2][0], np.median(points[2][1]))])
-        for xb, ovs, row in points:
-            row["predicted_overhead_s"] = round(xb * inv_bw + C, 4)
-        xb_m, ovs_m, _ = points[1]
-        pred_m = xb_m * inv_bw + C
-        val_in_bar = bool(ovs_m.min() <= pred_m <= ovs_m.max())
-        val_err = abs(pred_m - float(np.median(ovs_m))) / max(
-            abs(float(np.median(ovs_m))), 1e-12)
-
-        # consistency check at P=4 (same bytes model, different P)
-        ovs4, t1_8k, r4 = measure(8192, 4)
-        rep8k = comm_report("ssq_cwt", 8192 * N_DEV, N_DEV,
-                            scales="log", nv=NV, dtype="float32")
-        pred4 = cross_bytes(rep8k, 4) * inv_bw + C
-        r4.update(n_base=8192, eff_vs_1proc=round(t1_8k / r4["weak_s"], 3),
-                  cross_bytes=cross_bytes(rep8k, 4),
-                  overhead_s_median=round(float(np.median(ovs4)), 4),
-                  overhead_s_min=round(float(ovs4.min()), 4),
-                  overhead_s_max=round(float(ovs4.max()), 4),
-                  reps=R,
-                  predicted_overhead_s=round(pred4, 4))
-        os.environ["SCALING_N_BASE"] = str(N_BASE)
-        print(f"P=4 check: ov med={np.median(ovs4):.4f} "
-              f"[{ovs4.min():.4f}, {ovs4.max():.4f}] pred={pred4:.4f}",
-              flush=True)
-
-        # Usability verdict: with 5-rep error bars the r5 run measured a
-        # NEGATIVE overhead median at the largest size (bars straddle
-        # zero) — the cross-process overhead is strictly BELOW the
-        # 1-core run-variance floor, so no bandwidth fit is publishable
-        # from this host at all. Record that conclusion explicitly
-        # instead of a fit line the data contradicts.
-        usable = (inv_bw > 0
-                  and (val_in_bar or pred_m >= ovs_m.min())
-                  and pred4 >= ovs4.min())
-        fit = dict(
-            usable=bool(usable),
-            conclusion=(
-                "cross-process overhead is UNRESOLVED at the 1-core "
-                "run-variance floor: the largest size's 5-rep overhead "
-                "bar straddles zero, so the only supportable measured "
-                "statement is an upper bound — overhead <= the per-size "
-                "bar maxima (see rows' overhead_s_max). The v5p-16 "
-                "projection rests SOLELY on the exact byte accounting "
-                "(comm_report) + documented ICI constants, never on "
-                "this fit." if not usable else
-                "fit validates as an upper bound within measured error "
-                "bars"),
-            interpretation="UPPER BOUND, not a point predictor: on this "
-                 "1-core host the per-step comm overhead (2-4% of "
-                 "weak_s) sits at the run-variance floor, so measured "
-                 "points scatter across [min, max] bars of the same "
-                 "order as the signal. The fit line (on size medians) "
-                 "bounds overhead from above; claims derived from it "
-                 "inherit that direction only. The BYTE accounting "
-                 "(comm_report/cross_bytes) is exact by construction; "
-                 "the v5p projection rests on it + documented ICI "
-                 "constants, NOT on this fit.",
-            method=f"vary bytes at fixed P=2, {R} repetitions per size "
-                   "(1-core host: varying P confounds comm with core "
-                   "thrash)",
-            fit_on_n_base=[sizes[0], sizes[2]],
-            bw_gbps=(round(1e-9 / inv_bw, 4)
-                     if (usable and inv_bw > 0) else None),
-            fixed_cost_s=round(C, 4) if usable else None,
-            validation_n_base=sizes[1],
-            validation_pred_s=round(float(pred_m), 4),
-            validation_measured_s=[round(float(ovs_m.min()), 4),
-                                   round(float(np.median(ovs_m)), 4),
-                                   round(float(ovs_m.max()), 4)],
-            validation_within_error_bar=val_in_bar,
-            validation_is_upper_bound=bool(pred_m >= ovs_m.min()),
-            validation_rel_err=round(val_err, 3),
-            p4_consistency=dict(
-                measured=[round(float(ovs4.min()), 4),
-                          round(float(np.median(ovs4)), 4),
-                          round(float(ovs4.max()), 4)],
-                predicted=round(pred4, 4),
-                within_error_bar=bool(ovs4.min() <= pred4 <= ovs4.max()),
-                is_upper_bound=bool(pred4 >= ovs4.min())),
-        )
-        mp_rows = [p[2] for p in points] + [r4]
-        if not usable:
-            for row in mp_rows:     # no per-row predictions from a fit
-                row.pop("predicted_overhead_s", None)  # the data rejects
-        # replace old multi-process rows with the fresh, modeled set
-        data["rows"] = ([r for r in data["rows"]
-                         if r.get("processes", 1) == 1] + mp_rows)
-        data["comm_model"] = dict(config=rep, fit=fit)
-        print("fit:", json.dumps(fit), flush=True)
-
-    data["v5p16_projection"] = v5p_statement()
-    json.dump(data, open(path, "w"), indent=1)
-    print("v5p16:", json.dumps(data["v5p16_projection"]), flush=True)
-    print(f"wrote {path}")
-
-
-if __name__ == "__main__":
-    main()

@@ -3,7 +3,7 @@
 Spawns two `jax.distributed` worker processes, each owning 4 virtual
 CPU devices (8 global), and runs the sharded transforms over a
 (1, 8) 'time' mesh so the halo exchange crosses the PROCESS boundary —
-the DCN analog of a multi-host TPU run. Each worker independently
+the multi-process analog of a multi-host run. Each worker independently
 checks its local output shards against the locally-computed unsharded
 transform:
 
